@@ -18,6 +18,7 @@ reporting wall-clock percentiles over repeated warm requests.
 import argparse
 import json
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -46,7 +47,8 @@ def _requests(db_seqs: dict, rng, n: int, size: int):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workdir", default="/tmp/mdeepfri_e2e_bench_full")
+    ap.add_argument("--workdir", default=str(
+        Path(tempfile.gettempdir()) / "mdeepfri_e2e_bench_full"))
     ap.add_argument("--out", default="BENCH_SERVING.json")
     ap.add_argument("--warm-reps", type=int, default=20)
     args = ap.parse_args()
@@ -80,18 +82,9 @@ def main():
         assert out["results"], "empty annotation response"
         return dt
 
-    ping_before_cold = server.device_ping_ms()
     cold_s = timed(_requests(db_seqs, req_rng, 1, 1)[0])
-    ping_after_cold = server.device_ping_ms()
-
-    # Each warm request is followed by one tiny-device-program ping: a
-    # stalled request whose adjacent ping also stalls was waiting on the
-    # backend link, not on engine compute (round-4 verdict asked the tail
-    # to be attributed in-artifact).
-    singles, pings = [], []
-    for r in _requests(db_seqs, req_rng, args.warm_reps, 1):
-        singles.append(timed(r))
-        pings.append(server.device_ping_ms())
+    singles = [timed(r) for r in
+               _requests(db_seqs, req_rng, args.warm_reps, 1)]
     batches16 = [timed(r) for r in
                  _requests(db_seqs, req_rng, max(5, args.warm_reps // 4),
                            16)]
@@ -108,47 +101,19 @@ def main():
                 "p90_ms": round(1000 * xs[int(len(xs) * 0.9)], 1),
                 "min_ms": round(1000 * xs[0], 1)}
 
-    p50_s = sorted(singles)[len(singles) // 2]
-    ping_p50 = sorted(pings)[len(pings) // 2]
-    stalled = [(dt, pg) for dt, pg in zip(singles, pings)
-               if dt > 3 * p50_s]
-    link_stalled = [1 for _, pg in stalled
-                    if pg > max(3 * ping_p50, 100.0)]
-    if not stalled:
-        verdict = "no_stalls"
-    elif sum(link_stalled) * 2 >= len(stalled):
-        verdict = "backend_rpc"  # adjacent tiny-program pings stalled too
-    else:
-        verdict = "engine_or_host"
-    stall_attribution = {
-        "n_stalled_requests": len(stalled),
-        "n_with_stalled_adjacent_ping": sum(link_stalled),
-        "verdict": verdict,
-        "ping_p50_ms": round(ping_p50, 1),
-        "ping_max_ms": round(max(pings), 1),
-        "keepalive_ping_history_ms": [round(x, 1) for x in
-                                      server.ping_history_ms[-32:]],
-        "note": "pings execute a pre-compiled 8-element program; any "
-                "ping > ~100 ms is pure backend-link latency",
-    }
+    from metagenomic_deepfri_tpu.bench_utils import device_record
 
     payload = {
         "startup_s": round(startup_s, 2),
         "cold_first_request_s": round(cold_s, 2),
-        "cold_ping_before_after_ms": [round(ping_before_cold, 1),
-                                      round(ping_after_cold, 1)],
         "warm_single_protein": pct(singles),
         "warm_batch16": {**pct(batches16),
                          "proteins_per_sec":
                          round(16 / (sorted(batches16)[len(batches16) // 2]),
                                1)},
         "concurrent_8x4_total_s": round(concurrent_s, 2),
-        "stall_attribution": stall_attribution,
-        "keepalive_s": 5.0,
-        "device": None,
+        "device": device_record(),
     }
-    import jax
-    payload["device"] = str(jax.devices()[0])
     with open(args.out, "w", encoding="utf-8") as f:
         json.dump(payload, f, indent=1)
     print(json.dumps({"metric": "serving_warm_single_p50_ms",

@@ -1,6 +1,6 @@
-"""Metagenomic-DeepFRI-TPU: TPU-native protein function annotation framework.
+"""Metagenomic-DeepFRI on JAX: protein function annotation framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 bioinf-mcb/Metagenomic-DeepFRI (reference layout: ``mDeepFRI/__init__.py``):
 GO-term / EC-number annotation of protein catalogues with the DeepFRI model
 family — contact-map GCNs over per-residue protein graphs plus a sequence-only
@@ -9,8 +9,8 @@ contact-map-to-query alignment.
 
 Unlike the reference (serial per-protein ONNX inference, batch size 1,
 reference ``mDeepFRI/predict.pyx:75-102``), the compute core here executes
-length-bucketed mega-batches of protein graphs on TPU, with all ontology modes
-evaluated in a single stacked forward pass, and scales over device meshes via
+length-bucketed mega-batches of protein graphs on an accelerator, with all
+ontology modes evaluated in a single stacked forward pass, and scales over device meshes via
 ``jax.sharding`` / ``shard_map``.
 
 Public registry mirrors the reference's mode registry and Hugging Face weight

@@ -13,20 +13,19 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Iterable, Sequence
 
-# Bucket boundaries: MXU-aligned (multiples of 128 beyond the smallest).
+# Bucket boundaries: multiples of 128 (powers of two, so every batch shape
+# tiles matmuls evenly).
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048)
 
 # Target adjacency elements per GCN batch (B·L²): 512M f32 ≈ 2 GB per
-# adjacency buffer. Measured on v5e (BENCH_MATRIX.json + device-only batch
-# sweeps): throughput at long buckets is limited by BATCH size, not by
-# adjacency HBM traffic — the old 32M target starved the LSTM scan's
-# per-step matmul (batch 8 at bucket 2048 ran the MXU at 6% MFU; batch 128
-# at the same bucket runs at ~37%, batch 256 at ~42%). 512M keeps every
-# bucket ≥ 40% MFU while two adjacency temporaries + params + LM
-# activations still fit a 16 GB chip with >2× headroom.
+# adjacency buffer; large batches keep the LSTM scan's per-step matmul
+# (B × 512 × 2048) busy. The rule was sized for a 16 GB accelerator. On an
+# NVIDIA H100 80GB HBM3 (700 W), the 3-mode float32 GCN batch at this rule
+# peaked at 19.6–25.9 GB of device memory at bucket 512 (B 2048) and
+# 6.0–6.6 GB at bucket 2048 (B 128), of the 63.8 GB JAX reserves
+# (`memory_stats()` after the batch, two runs of chip_smoke.py).
 _TARGET_ADJ_ELEMS = 512 * 1024 * 1024
-# Batch ceiling: past ~2k the remaining gain is <5% (measured at buckets
-# 128/256) while host packing latency and partial-batch padding waste grow.
+# Batch ceiling: bounds host packing latency and partial-batch padding.
 _MAX_GCN_BATCH = 2048
 # Target token elements per CNN batch (B·L) — CNN has no O(L²) term.
 _TARGET_TOK_ELEMS = 512 * 1024

@@ -61,7 +61,7 @@ def build_align_projection(
 ) -> Tuple[AlignmentResult, Optional[tuple]]:
     """Target coords → query-indexed coordinate projection (fused-path prep).
 
-    The TPU production path: instead of materialising the O(L²) aligned
+    The production path: instead of materialising the O(L²) aligned
     contact map on host (``build_align_contact_map``), gather the target CA
     coordinates through the alignment (O(L)) and let the device build the
     adjacency inside the fused GCN step

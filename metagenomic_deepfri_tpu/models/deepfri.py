@@ -196,6 +196,17 @@ def graphconv_apply(layer: dict, agg: jnp.ndarray, dtype) -> jnp.ndarray:
     return jax.nn.relu(h)
 
 
+def graphconv_aggregate(adj: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
+    """A·H for a (B, L, L) adjacency and (B, L, D) features, f32 accumulate.
+
+    Named ``graphconv_aggregate`` in profiler traces so per-layer device
+    time can be read from a trace by scope name.
+    """
+    with jax.named_scope("graphconv_aggregate"):
+        return jnp.einsum("bij,bjd->bid", adj, x,
+                          preferred_element_type=jnp.float32)
+
+
 def _pool_over_length(concat: jnp.ndarray, valid: jnp.ndarray,
                       lengths: jnp.ndarray, mode: str) -> jnp.ndarray:
     """Masked sum- or mean-pool of (B, L, C) over L."""
@@ -240,9 +251,7 @@ def _gcn_trunk(params: dict, config: GCNConfig, tokens: jnp.ndarray,
     # (DeepFRI's GCNN_concatenate pattern).
     gc_outputs = []
     for gi, layer in enumerate(params["gc"]):
-        agg = jnp.einsum("bij,bjd->bid", adj, x,
-                         preferred_element_type=jnp.float32)
-        x = graphconv_apply(layer, agg, dtype)
+        x = graphconv_apply(layer, graphconv_aggregate(adj, x), dtype)
         gc_outputs.append(x)
         if stages is not None:
             stages[f"gc{gi}"] = x
@@ -372,9 +381,7 @@ def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
             ).astype(dtype)
         gc_outputs = []
         for layer in p["gc"]:
-            agg = jnp.einsum("bij,bjd->bid", adj, x,
-                             preferred_element_type=jnp.float32)
-            x = graphconv_apply(layer, agg, dtype)
+            x = graphconv_apply(layer, graphconv_aggregate(adj, x), dtype)
             gc_outputs.append(x)
         concat = jnp.concatenate(gc_outputs, axis=-1).astype(jnp.float32)
         pooled = _pool_over_length(concat, valid, lengths, cfg.pool)
@@ -382,53 +389,6 @@ def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
             pooled = jax.nn.relu(_dense(layer, pooled))
         out[mode] = _head_scores(p["head"], pooled, cfg.n_labels)
     return out
-
-
-def gcn_forward_fused(params: dict, config: GCNConfig, tokens: jnp.ndarray,
-                      proj_coords: jnp.ndarray, ins_mask: jnp.ndarray,
-                      lengths: jnp.ndarray,
-                      interpret: bool = False,
-                      threshold: float = 6.0,
-                      generated_contacts: int = 2) -> jnp.ndarray:
-    """GCN forward with the Pallas fused-adjacency GraphConv.
-
-    Identical math to ``gcn_forward(…, aligned_contacts_from_coords(...))``
-    but the (B, L, L) adjacency never materialises in HBM — each tile is
-    recomputed in VMEM from ``proj_coords`` and contracted immediately
-    (:mod:`..ops.graphconv_pallas`). The degree pass is shared across the
-    GraphConv stack.
-    """
-    from metagenomic_deepfri_tpu.ops.graphconv_pallas import \
-        normalized_aggregate
-
-    dtype = jnp.dtype(config.compute_dtype)
-    onehot = tokens2onehot(tokens, dtype=jnp.float32)
-    L = tokens.shape[1]
-    valid = (jnp.arange(L, dtype=jnp.int32)[None, :]
-             < lengths[:, None]).astype(jnp.float32)
-    onehot = onehot * valid[:, :, None]
-
-    lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
-                                compute_dtype=dtype)
-    x = _dense(params["lm_embed"], lm_out) + _dense(params["aa_embed"], onehot)
-    x = jax.nn.relu(x).astype(dtype)
-
-    degrees = None
-    gc_outputs = []
-    for layer in params["gc"]:
-        agg, degrees = normalized_aggregate(
-            proj_coords, ins_mask, lengths, x.astype(jnp.float32),
-            threshold=threshold, generated_contacts=generated_contacts,
-            adj_norm=config.adj_norm, interpret=interpret, degrees=degrees,
-            compute_dtype=config.compute_dtype)
-        x = graphconv_apply(layer, agg.astype(dtype), dtype)
-        gc_outputs.append(x)
-    concat = jnp.concatenate(gc_outputs, axis=-1).astype(jnp.float32)
-    pooled = _pool_over_length(concat, valid, lengths, config.pool)
-
-    for layer in params["fc"]:
-        pooled = jax.nn.relu(_dense(layer, pooled))
-    return _head_scores(params["head"], pooled, config.n_labels)
 
 
 def _cnn_trunk(params: dict, config: CNNConfig, tokens: jnp.ndarray,

@@ -3,8 +3,8 @@
 The reference executes the pretrained LSTM-LM inside the merged ONNX graph
 ("MERGED" model names, reference ``mDeepFRI/__init__.py:70-80``; background at
 SURVEY.md §2.4). Here it is a functional ``lax.scan`` over the length axis —
-XLA compiles the per-step (4H×H) recurrences onto the MXU and the scan
-carries only the (B, H) state.
+XLA compiles the per-step (4H×H) recurrences to one matmul per step and the
+scan carries only the (B, H) state.
 
 Gate convention is Keras/ONNX ``[i, f, c, o]`` with the input-kernel and
 recurrent-kernel stored as (in_dim, 4H) and (H, 4H); this is the layout the
@@ -73,26 +73,8 @@ def lstm_forward(params: dict, x: jnp.ndarray,
     h0 = jnp.zeros((B, hidden), cdt)
     c0 = jnp.zeros((B, hidden), jnp.float32)
     xw_t = jnp.swapaxes(xw, 0, 1)  # (L, B, 4H)
-    (_, _), hs = jax.lax.scan(step, (h0, c0), xw_t, reverse=reverse,
-                              unroll=_scan_unroll())
+    (_, _), hs = jax.lax.scan(step, (h0, c0), xw_t, reverse=reverse)
     return jnp.swapaxes(hs, 0, 1)  # (B, L, H)
-
-
-def _scan_unroll() -> int:
-    """Scan unroll factor for the recurrent loop (default 1 = no unroll).
-
-    Measured on v5e (bucket 512, batch 1024, device-only loop): unroll=4
-    *costs* ~30% (13.8k → 9.4k proteins/s) and unroll=8 slightly more —
-    the single-step program is already one fused matmul+gates kernel, so
-    unrolling only bloats the program without exposing new overlap. Kept
-    configurable via MDEEPFRI_LSTM_UNROLL for other TPU generations.
-    """
-    import os
-
-    try:
-        return max(1, int(os.environ.get("MDEEPFRI_LSTM_UNROLL", "1")))
-    except ValueError:
-        return 1
 
 
 def init_lstm_stack(key, in_dim: int, hidden: int, layers: int,

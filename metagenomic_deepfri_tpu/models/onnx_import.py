@@ -23,9 +23,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
-import jax.numpy as jnp
-
 from metagenomic_deepfri_tpu.models.deepfri import CNNConfig, GCNConfig
 from metagenomic_deepfri_tpu.models.onnx_reader import (DTYPE_MAP, OnnxGraph,
                                                         OnnxNode, save_onnx)
@@ -285,8 +282,7 @@ def _lstm_dir_from_onnx(W, R, B, d: int) -> dict:
     bias = _iofc_to_ifco(wb, hidden) + _iofc_to_ifco(rb, hidden)
     # host numpy by design: imported weights stay on host until the engine
     # fingerprints them (shared-trunk detection) and device-places each
-    # tree ONCE — eager per-leaf device ops at import measured seconds
-    # each under backend load.
+    # tree ONCE, instead of paying one eager device op per leaf.
     return {"kernel": np.ascontiguousarray(kernel),
             "recurrent": np.ascontiguousarray(recurrent),
             "bias": np.ascontiguousarray(bias)}
@@ -323,7 +319,10 @@ def lstm_params_to_onnx(params: dict) -> tuple[np.ndarray, np.ndarray,
 # ---------------------------------------------------------------------------
 
 class OnnxExecutor:
-    """Eagerly evaluate an :class:`OnnxGraph` on named feeds.
+    """Eagerly evaluate an :class:`OnnxGraph` on named feeds, in numpy.
+
+    The plain reference the JAX models are checked against: it shares no
+    code with the JAX path and never touches an accelerator.
 
     Returns all graph outputs (list), mirroring
     ``onnxruntime.InferenceSession.run(None, feeds)`` (reference
@@ -362,7 +361,7 @@ class OnnxExecutor:
         x = [env[i] if i else None for i in node.inputs]
 
         if op == "MatMul":
-            return [np.asarray(jnp.matmul(x[0], x[1]))]
+            return [np.matmul(x[0], x[1])]
         if op == "Gemm":
             a = x[0].T if attrs.get("transA", 0) else x[0]
             b = x[1].T if attrs.get("transB", 0) else x[1]
@@ -381,7 +380,7 @@ class OnnxExecutor:
         if op == "Relu":
             return [np.maximum(x[0], 0)]
         if op == "Sigmoid":
-            return [np.asarray(jax.nn.sigmoid(x[0]))]
+            return [np.exp(-np.logaddexp(0, -x[0])).astype(x[0].dtype)]
         if op == "Tanh":
             return [np.tanh(x[0])]
         if op == "Sqrt":
@@ -395,7 +394,8 @@ class OnnxExecutor:
             return [y]
         if op == "Softmax":
             axis = attrs.get("axis", -1)
-            return [np.asarray(jax.nn.softmax(x[0], axis=axis))]
+            e = np.exp(x[0] - np.max(x[0], axis=axis, keepdims=True))
+            return [e / np.sum(e, axis=axis, keepdims=True)]
         if op == "Concat":
             return [np.concatenate(x, axis=attrs["axis"])]
         if op == "Reshape":
@@ -557,28 +557,41 @@ class OnnxExecutor:
         raise NotImplementedError(f"ONNX op not supported: {op}")
 
     def _conv(self, x, attrs):
-        """1-D/2-D Conv with NCW/NCHW layout (ONNX convention)."""
-        data, weight = x[0], x[1]
+        """N-d Conv with NC(D)(H)W layout (ONNX convention), in numpy."""
+        data = np.asarray(x[0], np.float32)
+        weight = np.asarray(x[1], np.float32)
         bias = x[2] if len(x) > 2 else None
         spatial = data.ndim - 2
+        if attrs.get("group", 1) != 1 or any(
+                d != 1 for d in attrs.get("dilations", [1] * spatial)):
+            raise NotImplementedError("Conv with groups or dilations")
         strides = attrs.get("strides", [1] * spatial)
-        pads = attrs.get("pads", [0] * (2 * spatial))
+        kernel = weight.shape[2:]
+        pads = list(attrs.get("pads", [0] * (2 * spatial)))
         auto_pad = attrs.get("auto_pad", b"NOTSET")
         if isinstance(auto_pad, bytes):
             auto_pad = auto_pad.decode()
         if auto_pad in ("SAME_UPPER", "SAME_LOWER"):
-            padding = "SAME"
-        else:
-            padding = [(pads[i], pads[i + spatial]) for i in range(spatial)]
-        dn_in = "NC" + "DHW"[3 - spatial:]
-        dn = (dn_in, "OI" + "DHW"[3 - spatial:], dn_in)
-        y = jax.lax.conv_general_dilated(
-            jnp.asarray(data, jnp.float32), jnp.asarray(weight, jnp.float32),
-            window_strides=strides, padding=padding, dimension_numbers=dn)
-        y = np.asarray(y)
+            for i in range(spatial):
+                n = data.shape[2 + i]
+                total = max((-(-n // strides[i]) - 1) * strides[i]
+                            + kernel[i] - n, 0)
+                small = total // 2
+                lo = small if auto_pad == "SAME_UPPER" else total - small
+                pads[i], pads[i + spatial] = lo, total - lo
+        data = np.pad(data, [(0, 0), (0, 0)] + [
+            (pads[i], pads[i + spatial]) for i in range(spatial)])
+        win = np.lib.stride_tricks.sliding_window_view(
+            data, kernel, axis=tuple(range(2, 2 + spatial)))
+        win = win[(slice(None), slice(None))
+                  + tuple(slice(None, None, s) for s in strides)]
+        # (N, C, *out, *k) · (O, C, *k) → (N, *out, O) → (N, O, *out)
+        axes = [1] + list(range(2 + spatial, 2 + 2 * spatial))
+        y = np.tensordot(win, weight, axes=(axes, list(range(1, 2 + spatial))))
+        y = np.moveaxis(y, -1, 1)
         if bias is not None:
             y = y + bias.reshape((1, -1) + (1,) * spatial)
-        return y
+        return y.astype(np.float32)
 
     def _lstm(self, x, attrs):
         """ONNX LSTM with full input-list semantics.
@@ -633,8 +646,11 @@ class OnnxExecutor:
                 h = h0[d, b].copy()
                 c = c0[d, b].copy()
                 order = range(T - 1, -1, -1) if reverse else range(T)
+                # input projection of every step in one matmul
+                xw = X[:T, b] @ w.T + (wb + rb)
+                rt = np.ascontiguousarray(r.T)
                 for t in order:
-                    gates = X[t, b] @ w.T + h @ r.T + wb + rb
+                    gates = xw[t] + h @ rt
                     i = _sigmoid(gates[:hidden])
                     o = _sigmoid(gates[hidden:2 * hidden])
                     f = _sigmoid(gates[2 * hidden:3 * hidden])

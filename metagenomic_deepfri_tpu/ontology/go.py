@@ -36,7 +36,7 @@ def download_obo(obo_path: Path) -> Path:
     obo_path.parent.mkdir(parents=True, exist_ok=True)
     logger.info("Downloading go-basic.obo from %s", GO_OBO_URL)
     req = urllib.request.Request(GO_OBO_URL,
-                                 headers={"User-Agent": "mdeepfri-tpu"})
+                                 headers={"User-Agent": "mdeepfri"})
     with urllib.request.urlopen(req) as response, open(obo_path, "wb") as out:
         out.write(response.read())
     return obo_path

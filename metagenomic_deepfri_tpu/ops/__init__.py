@@ -1,4 +1,4 @@
-"""TPU-native compute kernels (JAX/XLA/Pallas) for the DeepFRI data path.
+"""Device compute for the DeepFRI data path, in plain JAX/XLA.
 
 Each module replaces one of the reference's Cython/C++/OpenMP kernels with a
 batched, device-resident equivalent (reference inventory: SURVEY.md §2.2):
@@ -8,7 +8,6 @@ batched, device-resident equivalent (reference inventory: SURVEY.md §2.2):
   (ref ``contact_map_utils.pyx:17-37``, ``bio_utils.py:196-227``)
 - :mod:`.cmap_align` — alignment-driven contact-map remapping
   (ref ``contact_map_utils.pyx:44-117``)
-- :mod:`.spmm` — sparse/dense neighbourhood aggregation for GraphConv
 - :mod:`.nw` — Needleman–Wunsch pairwise alignment (host C++/ctypes + reference
   Python implementation; replaces pyOpal, ref ``alignment.py:163-220``)
 """

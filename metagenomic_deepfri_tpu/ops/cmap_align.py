@@ -6,9 +6,9 @@ protein's contacts through a gapped query↔target alignment onto query residue
 indices, synthesising local contacts for query insertions, and emitting a
 dense binary query contact map with an identity diagonal.
 
-TPU-first design: instead of a serial scatter, the remapping is expressed as a
+On the device, instead of a serial scatter, the remapping is expressed as a
 projection ``A_q = P · A_t · Pᵀ`` where ``P`` is the (Q, T) 0/1 selection
-matrix derived from the alignment — two batched MXU matmuls — OR-ed with the
+matrix derived from the alignment — two batched matmuls — OR-ed with the
 identity diagonal and a banded insertion-neighbourhood mask. This is the
 batched "alignment feeds adjacency construction" kernel of BASELINE config 3.
 
@@ -185,7 +185,7 @@ def aligned_contacts_from_coords(proj_coords: jnp.ndarray,
 
     Jit-inline-able core of the fused GCN step: threshold the pairwise
     squared distances of the gathered coordinates (exact f32 difference form
-    on the VPU), OR in the identity diagonal and the insertion band, zero
+    elementwise), OR in the identity diagonal and the insertion band, zero
     the padding.
 
     Args:
@@ -250,7 +250,7 @@ def batched_align_contact_maps(target_cmaps: jnp.ndarray,
     T = target_cmaps.shape[-1]
     mapped = q_to_t >= 0
     safe_idx = jnp.where(mapped, q_to_t, 0)
-    # P as one-hot selection: (B, Q, T). XLA lowers P·A·Pᵀ onto the MXU.
+    # P as one-hot selection: (B, Q, T); XLA lowers P·A·Pᵀ to two matmuls.
     P = jax.nn.one_hot(safe_idx, T, dtype=target_cmaps.dtype)
     P = P * mapped[..., None].astype(target_cmaps.dtype)
     projected = jnp.einsum("bqt,btu,bru->bqr", P, target_cmaps, P,

@@ -4,14 +4,11 @@ Replaces the reference's OpenMP Cython kernel ``pairwise_sqeuclidean``
 (reference ``mDeepFRI/contact_map_utils.pyx:17-37``) and the thresholding in
 ``calculate_contact_map`` (reference ``mDeepFRI/bio_utils.py:196-227``).
 
-TPU-first design: the O(L²) distance computation is the exact per-axis
-difference form on the VPU (8 flops/entry, fused by XLA into the threshold
-compare) — NOT the Gram-matrix/MXU identity, whose reduced default f32 matmul
-precision on TPU flips near-threshold contacts (see
-``_pairwise_sqeuclidean_device``).
-A Pallas kernel (`contact_map_kernel`) additionally fuses the whole
-coords→contacts computation in VMEM so the distance matrix never round-trips
-through HBM for large L.
+The O(L²) distance computation is the exact per-axis difference form
+(8 flops/entry), which XLA fuses with the threshold compare into one loop
+that writes only the contact map — NOT the Gram-matrix identity, whose
+reduced default float32 matmul precision on the GPU (TF32) flips
+near-threshold contacts (see ``_pairwise_sqeuclidean_device``).
 
 Host-side (numpy) equivalents keep API parity for the file-oriented pipeline
 verbs (``make-cmaps``).
@@ -25,8 +22,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 # ---------------------------------------------------------------------------
@@ -71,18 +66,19 @@ def calculate_contact_map(coordinates: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Device (XLA) path — batched, masked, VPU difference form.
+# Device (XLA) path — batched, masked, per-axis difference form.
 # ---------------------------------------------------------------------------
 
 def _pairwise_sqeuclidean_device(coords: jnp.ndarray) -> jnp.ndarray:
     """(B, L, L) f32 squared distances, exact difference form.
 
-    Deliberately NOT the Gram/matmul identity: on TPU the default f32 matmul
-    precision is reduced (bf16 passes on the MXU), which perturbs distances
-    by several Å² at protein coordinate magnitudes and flips near-threshold
-    contacts vs the reference. The per-axis difference form is exact f32 on
-    the VPU, fuses into the threshold compare, and costs ~8 flops/entry —
-    negligible next to the GraphConv matmuls.
+    Deliberately NOT the Gram/matmul identity: on the GPU a float32 matmul
+    may run in TF32 (about three decimal digits) unless a precision is
+    given, which perturbs distances by several Å² at protein coordinate
+    magnitudes and flips near-threshold contacts vs the reference. The
+    per-axis difference form is exact f32 elementwise work, fuses into the
+    threshold compare, and costs ~8 flops/entry — negligible next to the
+    GraphConv matmuls.
     """
     dx = coords[:, :, None, 0] - coords[:, None, :, 0]
     dy = coords[:, :, None, 1] - coords[:, None, :, 1]
@@ -113,87 +109,3 @@ def batched_contact_maps(coords: jnp.ndarray,
     valid = pos[None, :] < lengths[:, None]
     mask2d = valid[:, :, None] & valid[:, None, :]
     return contacts * mask2d.astype(jnp.float32)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel — fused coords → contact tiles, no HBM distance matrix.
-# ---------------------------------------------------------------------------
-
-_TILE = 256
-_MIN_TILE = 128
-
-
-def contact_map_fused(coords: jnp.ndarray,
-                      lengths: jnp.ndarray,
-                      threshold: float = 6.0,
-                      interpret: bool = False) -> jnp.ndarray:
-    """Pallas fused contact map for ANY length.
-
-    Lengths that don't divide the tile are padded internally to the next
-    128-multiple and the result sliced back — no silent XLA fallback (the
-    default 128-residue bucket used to abandon the kernel entirely). Padded
-    rows are masked by the length prefetch, so the slice is exact.
-
-    The tiled ``pallas_call`` only lowers on TPU; on other backends this
-    dispatches to :func:`batched_contact_maps` (identical output contract)
-    unless ``interpret=True`` forces the kernel through the interpreter.
-    """
-    if not interpret and jax.default_backend() != "tpu":
-        return batched_contact_maps(coords, lengths, threshold=threshold)
-    return _contact_map_fused_impl(coords, lengths, float(threshold),
-                                   interpret)
-
-
-@partial(jax.jit, static_argnames=("threshold", "interpret"))
-def _contact_map_fused_impl(coords, lengths, threshold: float,
-                            interpret: bool = False):
-    B, L, C = coords.shape
-    Lp = -(-L // _MIN_TILE) * _MIN_TILE
-    tile = _TILE if Lp % _TILE == 0 else _MIN_TILE
-    pad = jnp.zeros((B, Lp - L, C), dtype=jnp.float32)
-    coords = jnp.concatenate([coords.astype(jnp.float32), pad], axis=1)
-    coords8 = jnp.concatenate(
-        [coords, jnp.zeros((B, Lp, 8 - C), jnp.float32)], axis=-1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, Lp // tile, Lp // tile),
-        in_specs=[
-            pl.BlockSpec((1, tile, 8), lambda b, i, j, *_: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile, 8), lambda b, i, j, *_: (b, j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, tile, tile),
-                               lambda b, i, j, *_: (b, i, j),
-                               memory_space=pltpu.VMEM),
-    )
-
-    def kernel_with_prefetch(lengths_sref, rows_ref, cols_ref, out_ref):
-        b = pl.program_id(0)
-        i = pl.program_id(1)
-        j = pl.program_id(2)
-        rows = rows_ref[0]
-        cols = cols_ref[0]
-        # Exact f32 difference form per axis (see _pairwise_sqeuclidean_device
-        # for why not the Gram matmul).
-        dist = jnp.zeros((tile, tile), jnp.float32)
-        for k in range(3):
-            d = rows[:, k][:, None] - cols[:, k][None, :]
-            dist = dist + d * d
-        n = lengths_sref[b]
-        row_ids = jax.lax.broadcasted_iota(
-            jnp.int32, (tile, tile), 0) + i * tile
-        col_ids = jax.lax.broadcasted_iota(
-            jnp.int32, (tile, tile), 1) + j * tile
-        valid = (row_ids < n) & (col_ids < n)
-        out_ref[0] = jnp.where(valid & (dist < threshold * threshold),
-                               1.0, 0.0)
-
-    out = pl.pallas_call(
-        kernel_with_prefetch,
-        out_shape=jax.ShapeDtypeStruct((B, Lp, Lp), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(lengths.astype(jnp.int32), coords8, coords8)
-    return out[:, :L, :L]

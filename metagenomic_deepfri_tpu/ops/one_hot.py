@@ -5,7 +5,7 @@ Replaces the reference's Cython ``seq2onehot`` (reference
 bit-compatibility contract with the DeepFRI weights and MUST NOT change
 (reference ``predict.pyx:32``).
 
-TPU-first design: sequences are tokenised once on the host into compact
+Sequences are tokenised once on the host into compact
 ``uint8`` token arrays; the (padded, batched) one-hot expansion happens on
 device as part of the jitted forward pass, so the host→device transfer is
 O(B·L) bytes instead of O(B·L·26) floats.

@@ -1,11 +1,10 @@
-"""Multi-chip execution: device meshes, shardings, and the fine-tuning step.
+"""Multi-device execution: device meshes, shardings, and the fine-tuning step.
 
 The reference has NO multi-device execution of any kind (SURVEY.md §2.3; the
 only parallelism is host-side multiprocessing, reference ``pipeline.py:480``,
-``alignment.py:314-318``). This package is therefore new capability, designed
-TPU-first:
+``alignment.py:314-318``). This package is therefore new capability:
 
-- :mod:`mesh` — build a ``jax.sharding.Mesh`` over the available chips with
+- :mod:`mesh` — build a ``jax.sharding.Mesh`` over the available devices with
   named ``data`` / ``model`` axes.
 - :mod:`shard` — PartitionSpec trees for DeepFRI parameter pytrees and padded
   batches (data-parallel batch sharding + Megatron-style column/row tensor

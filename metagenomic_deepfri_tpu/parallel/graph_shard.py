@@ -1,17 +1,17 @@
 """Edge-partitioned GraphConv aggregation across a device mesh.
 
 The BASELINE north star's graph analogue of sequence parallelism: partition
-the packed protein-graph batch's NODE dimension across chips, and compute
-each chip's rows of ``Â·X`` while the node features ride a ring of
-``ppermute`` exchanges over ICI — local tile contraction overlaps with the
-next shard's transfer (XLA schedules the collective-permute asynchronously
-against the matmul).
+the packed protein-graph batch's NODE dimension across devices, and compute
+each device's rows of ``Â·X`` while the node features ride a ring of
+``ppermute`` exchanges between devices — local tile contraction can overlap
+with the next shard's transfer (XLA may schedule the collective-permute
+asynchronously against the matmul).
 
-Key design choice: the adjacency is NEVER communicated. Each chip recomputes
-its (rows_own × cols_visiting) adjacency block from the *replicated* O(L)
-projected CA coordinates (same trick as :mod:`..ops.graphconv_pallas` uses
-for HBM) — coordinates are ~3 floats/residue, so replication costs nothing,
-while the O(L²) adjacency would dominate ICI traffic. Per ring step a chip
+Key design choice: the adjacency is NEVER communicated. Each device
+recomputes its (rows_own × cols_visiting) adjacency block from the
+*replicated* O(L) projected CA coordinates — coordinates are ~3
+floats/residue, so replication costs nothing, while the O(L²) adjacency
+would dominate the traffic between devices. Per ring step a device
 sends/receives only its (B, L/n, D) feature shard: total bytes moved equal a
 standard all-gather of X, the minimum any edge partition needs.
 
@@ -44,9 +44,9 @@ def _contact_block(coords, ins_mask, lengths, r0, c0, Ls: int,
     ins_r = jax.lax.dynamic_slice_in_dim(ins_mask, r0, Ls, axis=1)
     ins_c = jax.lax.dynamic_slice_in_dim(ins_mask, c0, Ls, axis=1)
 
-    # Exact f32 per-axis difference form — the Gram/MXU identity runs at
-    # reduced default f32 matmul precision on TPU and flips near-threshold
-    # contacts (see ops.contact._pairwise_sqeuclidean_device).
+    # Exact f32 per-axis difference form — the Gram/matmul identity may run
+    # in TF32 on the GPU and flip near-threshold contacts (see
+    # ops.contact._pairwise_sqeuclidean_device).
     dist = jnp.zeros((B, Ls, Ls), jnp.float32)
     for axis_k in range(3):
         d = rows[:, :, axis_k][:, :, None] - cols[:, :, axis_k][:, None, :]

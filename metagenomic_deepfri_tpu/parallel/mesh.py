@@ -1,9 +1,11 @@
-"""Device-mesh construction for single-host slices and multi-host pods.
+"""Device-mesh construction for one host and for several hosts.
 
-TPU-first replacement for the reference's absent distributed backend
-(SURVEY.md §2.3: no NCCL/MPI — files on disk were the only "communication").
-Here the communication substrate is XLA collectives over ICI, expressed by
-sharding arrays over a named ``jax.sharding.Mesh``.
+Replacement for the reference's absent distributed backend (SURVEY.md §2.3:
+no NCCL/MPI — files on disk were the only "communication"). Here the
+communication substrate is XLA collectives (NCCL on GPUs), expressed by
+sharding arrays over a named ``jax.sharding.Mesh``. The GPUs of one host
+are joined all to all by NVLink, so within a host the mesh follows the
+algorithm alone; hosts talk over the network.
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ def make_mesh(n_devices: Optional[int] = None,
         model_parallel: size of the model/tensor axis; must divide n_devices.
             The data axis gets the rest. ``model_parallel=1`` is pure DP.
         axis_names: names for (data, model) axes.
-        devices: explicit device list (default ``jax.devices()``). On a real
-            pod slice, callers should order devices so the model axis maps to
-            ICI neighbours; ``jax.devices()`` order already does this for a
-            single host.
+        devices: explicit device list (default ``jax.devices()``). Within
+            one host every device reaches every other at the same rate, so
+            ``jax.devices()`` order serves.
     """
     devs = list(devices) if devices is not None else list(jax.devices())
     if n_devices is not None:
@@ -51,14 +52,14 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def make_pod_mesh(model_parallel: int = 1,
                   axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)) -> Mesh:
-    """Multi-host mesh: data axis spans hosts (DCN), model axis stays intra-
-    host (ICI).
+    """Multi-host mesh: data axis spans hosts (network), model axis stays
+    within a host (NVLink).
 
-    Call after ``jax.distributed.initialize()`` on every host of the slice.
-    Uses ``mesh_utils.create_hybrid_device_mesh`` so collectives over the
-    model axis ride ICI while the data axis only ever all-reduces gradients /
-    shards input batches over DCN — the layout the scaling playbook
-    prescribes for inference+fine-tuning workloads.
+    Call after ``jax.distributed.initialize()`` on every host. Uses
+    ``mesh_utils.create_hybrid_device_mesh`` so collectives over the model
+    axis stay inside a host while the data axis only ever all-reduces
+    gradients / shards input batches across hosts. Devices without a
+    ``slice_index`` attribute (GPUs) are grouped per process.
     """
     import jax.experimental.mesh_utils as mesh_utils
 
@@ -71,7 +72,7 @@ def make_pod_mesh(model_parallel: int = 1,
     per_host = (n_local // model_parallel, model_parallel)
     n_hosts = n_total // n_local
     if n_hosts == 1:
-        # single host/slice — no DCN dimension to arrange
+        # single host — no cross-host dimension to arrange
         return make_mesh(model_parallel=model_parallel,
                          axis_names=axis_names)
     grid = mesh_utils.create_hybrid_device_mesh(

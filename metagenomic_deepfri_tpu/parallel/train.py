@@ -2,7 +2,7 @@
 
 New capability relative to the reference, which is inference-only (SURVEY.md
 intro; its models arrive pre-trained as ONNX, reference ``__init__.py:47``).
-A TPU framework that hosts the model natively can also fine-tune it on new
+A framework that hosts the model natively can also fine-tune it on new
 GO/EC annotations, so the training step is first-class here:
 
 - loss: per-term two-way softmax cross-entropy, matching the inference head's

@@ -82,10 +82,10 @@ def check_model_parity(net: str, mode: str, model_path, params_json,
     the logit comparison has no such blind spot). The ONNX-side logits are
     read from the Softmax node's input in the execution trace.
 
-    Both paths run under ``matmul_precision='highest'`` — on TPU the
-    default f32 matmul is reduced-precision, and the two execution orders
-    would otherwise diverge at ~1e-3 in logits regardless of semantic
-    parity.
+    Both paths run under ``matmul_precision='highest'`` — on the GPU a
+    float32 matmul may otherwise run in TF32 (about three decimal digits),
+    and the two execution orders would diverge at ~1e-3 in logits
+    regardless of semantic parity.
     """
     import jax
 
@@ -205,8 +205,11 @@ def verify_weights(weights_dir, modes: Optional[List[str]] = None,
                    tolerance: float = DEFAULT_TOLERANCE,
                    logit_tolerance: Optional[float] = None,
                    seed: int = 0,
-                   trace: bool = False) -> List[ParityResult]:
+                   trace: bool = False,
+                   max_len: int = 300) -> List[ParityResult]:
     """Parity-check every model in a weights folder. Returns all results.
+
+    Random proteins are drawn with lengths in ``[40, max_len)``.
 
     With ``trace=True``, any failing model additionally gets a per-stage
     divergence report logged (first stage over tolerance = the culprit).
@@ -228,6 +231,7 @@ def verify_weights(weights_dir, modes: Optional[List[str]] = None,
                 "_model_params.json"
             res = check_model_parity(net, mode, model_path, params_json,
                                      n_proteins=n_proteins,
+                                     max_len=max_len,
                                      tolerance=tolerance,
                                      logit_tolerance=logit_tolerance,
                                      seed=seed)

@@ -25,13 +25,12 @@ import csv
 import logging
 import pathlib
 import pickle
-import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
-from tqdm import tqdm
 
 from metagenomic_deepfri_tpu import DEEPFRI_MODES
 from metagenomic_deepfri_tpu.align.pairwise import align_mmseqs_results
@@ -62,6 +61,38 @@ FINAL_OUTPUT_HEADER = [
 ]
 NAN_ALIGNMENT_INFO = [np.nan] * 6
 SCORE_THRESHOLD = 0.1  # reference pipeline.py:701,735
+
+
+class ProgressLog:
+    """Periodic ``logger.info`` progress lines for a long inference phase.
+
+    ``update(n)`` counts finished items; a line is logged at most every
+    ``interval_s`` seconds, and ``close()`` logs the final count.
+    """
+
+    def __init__(self, desc: str, total: Optional[int] = None,
+                 interval_s: float = 10.0):
+        self.desc = desc
+        self.total = total
+        self.interval_s = interval_s
+        self.n = 0
+        self._t0 = self._last = time.monotonic()
+
+    def _log(self, now: float) -> None:
+        elapsed = now - self._t0
+        rate = self.n / elapsed if elapsed > 0 else 0.0
+        of = f"/{self.total}" if self.total is not None else ""
+        logger.info("%s: %d%s [%.1f/s]", self.desc, self.n, of, rate)
+
+    def update(self, n: int) -> None:
+        self.n += n
+        now = time.monotonic()
+        if now - self._last >= self.interval_s:
+            self._last = now
+            self._log(now)
+
+    def close(self) -> None:
+        self._log(time.monotonic())
 
 
 def load_query_file(query_file,
@@ -120,14 +151,6 @@ def hierarchical_database_search(query_file: QueryFile,
                                  threads: int = 1) -> List[Database]:
     """Search each database in order, filter + top-k, persist per-DB TSVs
     (reference pipeline.py:107-267)."""
-    # The search phase is pure host work — start paying the device
-    # backend's per-process admission stall underneath it (see
-    # batching.engine.start_admission_probe) so the inference phase
-    # starts against an admitted connection.
-    from metagenomic_deepfri_tpu.batching.engine import \
-        start_admission_probe
-
-    start_admission_probe()
     output_path = pathlib.Path(output_path)
     output_path.mkdir(parents=True, exist_ok=True)
     sequence_num_start = len(query_file.sequences)
@@ -270,7 +293,7 @@ def predict_protein_function(
     # ---- alignment + contact-map stage --------------------------------------
     # Runs as a PRODUCER: each database's pyOpal-style re-alignment,
     # coordinate extraction, and O(L) projection happen on host threads while
-    # the consumer (the batched TPU engine below) is already predicting the
+    # the consumer (the batched device engine below) is already predicting the
     # previous database's proteins — removing the reference's strict phase
     # barrier between CPU preprocessing and accelerator compute (SURVEY.md §7
     # hard part (e); reference cli.py:458-497).
@@ -359,7 +382,7 @@ def predict_protein_function(
     with profiling.stage("load/models"):
         gcn_handles, cnn_handles, _ = load_models(weights,
                                                   deepfri_processing_modes)
-    # Use every visible chip: data-parallel mesh over the local devices
+    # Use every visible device: data-parallel mesh over the local devices
     # (single-device → plain jit). The reference is single-accelerator only.
     import jax as _jax
     mesh = None
@@ -455,7 +478,7 @@ def predict_protein_function(
                 return
             yield item
 
-    gcn_bar = tqdm(desc="Predicting (GCN)", file=sys.stdout, mininterval=10)
+    gcn_bar = ProgressLog("Predicting (GCN)")
     producer_thread = _threading.Thread(target=_producer, daemon=True)
     producer_thread.start()
     try:
@@ -520,8 +543,8 @@ def predict_protein_function(
         sorted(unaligned_queries.items(), key=lambda x: len(x[1])))
     cnn_items = list(unaligned_queries.items())
     pending_cnn = [it for it in cnn_items if it[0] not in done_cnn]
-    bar = tqdm(total=len(pending_cnn) * len(deepfri_processing_modes),
-               desc="Predicting (CNN)", file=sys.stdout, mininterval=10)
+    bar = ProgressLog("Predicting (CNN)",
+                      total=len(pending_cnn) * len(deepfri_processing_modes))
     with profiling.stage("inference/cnn", items=len(pending_cnn)):
         cnn_scores = predictor.predict_cnn(
             pending_cnn, modes=list(cnn_handles),

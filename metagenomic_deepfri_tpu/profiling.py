@@ -1,15 +1,16 @@
 """Stage timers, throughput counters, and JAX profiler integration.
 
-The reference has no in-product tracing — runtime visibility is tqdm bars and
-external wall-clock scripts (SURVEY.md §5; reference ``pipeline.py:298-306``,
-``benchmark/time_benchmark_cpu.py``). Here profiling is first-class:
+The reference has no in-product tracing — runtime visibility is progress
+bars and external wall-clock scripts (SURVEY.md §5; reference
+``pipeline.py:298-306``, ``benchmark/time_benchmark_cpu.py``). Here
+profiling is first-class:
 
 - :func:`stage` — context manager timing a named pipeline stage, with
   optional item counters (→ proteins/s) and edge counters (→ edges/s);
   results accumulate in a process-wide registry.
 - :func:`report` / :func:`log_report` — structured summary of all stages.
 - :func:`jax_trace` — wraps ``jax.profiler.trace`` so a TensorBoard-readable
-  device trace is captured when ``MDEEPFRI_TPU_TRACE_DIR`` is set (or a path
+  device trace is captured when ``MDEEPFRI_TRACE_DIR`` is set (or a path
   is passed explicitly); a no-op otherwise.
 """
 
@@ -24,7 +25,7 @@ from typing import Dict, Optional
 
 logger = logging.getLogger(__name__)
 
-_TRACE_ENV = "MDEEPFRI_TPU_TRACE_DIR"
+_TRACE_ENV = "MDEEPFRI_TRACE_DIR"
 
 
 @dataclass
@@ -103,7 +104,7 @@ def log_report() -> None:
 def jax_trace(trace_dir: Optional[str] = None):
     """Capture a JAX device trace if a directory is configured.
 
-    Directory precedence: explicit argument, then ``MDEEPFRI_TPU_TRACE_DIR``.
+    Directory precedence: explicit argument, then ``MDEEPFRI_TRACE_DIR``.
     View with TensorBoard's profile plugin or Perfetto.
     """
     trace_dir = trace_dir or os.environ.get(_TRACE_ENV)

@@ -34,7 +34,7 @@ RCSB_CIF_URL = "https://files.rcsb.org/view/{pdb_id}.cif"
 
 
 def default_cache_dir() -> Path:
-    path = Path.home() / ".cache" / "mdeepfri_tpu"
+    path = Path.home() / ".cache" / "mdeepfri"
     path.mkdir(parents=True, exist_ok=True)
     return path
 
@@ -70,7 +70,7 @@ def get_pdb_structure(pdb_id: str,
 
     pdb_id = pdb_id.lower()
     url = RCSB_CIF_URL.format(pdb_id=pdb_id)
-    req = urllib.request.Request(url, headers={"User-Agent": "mdeepfri-tpu"})
+    req = urllib.request.Request(url, headers={"User-Agent": "mdeepfri"})
     with urllib.request.urlopen(req) as resp:
         structure = resp.read().decode("utf-8", "replace")
     if save_directory:

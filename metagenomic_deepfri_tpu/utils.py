@@ -19,7 +19,7 @@ import subprocess
 import sys
 from glob import glob
 from pathlib import Path
-from typing import Dict, Iterable, List, Literal
+from typing import Dict, Iterable, List, Literal, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -44,38 +44,35 @@ def run_command(command: str, echo: bool = True) -> str:
     return "".join(captured)
 
 
-def enable_persistent_compile_cache() -> None:
-    """Point XLA's persistent compilation cache at a per-user directory.
+# The persistent compile cache's fixed place inside the checkout; the
+# directory is part of the cache's key, so it must not move between runs.
+COMPILE_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
 
-    Every distinct (program, shape) pair pays its client-side compile once
-    per MACHINE instead of once per process — the dominant cold-start cost
-    of the batched engine (a 512-step LSTM-scan program compiles in
-    seconds-to-minutes). Safe to call multiple times; silently a no-op on
-    JAX builds without the knob. Override the location with
-    ``MDEEPFRI_COMPILE_CACHE`` (set to an empty string to disable).
+
+def enable_persistent_compile_cache() -> Optional[str]:
+    """Turn on XLA's persistent compilation cache; return its directory.
+
+    Every distinct (program, shape) pair then pays its compile once per
+    cache directory instead of once per process — the dominant cold-start
+    cost of the batched engine. Where ``JAX_COMPILATION_CACHE_DIR`` is set,
+    JAX's own setting is left alone; otherwise the cache lives at the
+    fixed in-checkout :data:`COMPILE_CACHE_DIR`. A process pinned to the
+    CPU platform keeps no cache (XLA:CPU machine code is tied to the host's
+    CPU features, and CPU compiles are cheap). Decides from configuration
+    alone, so calling it never initialises a backend. Idempotent.
     """
     import os
 
-    cache_dir = os.environ.get(
-        "MDEEPFRI_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/mdeepfri_jax_cache"))
-    if not cache_dir:
-        return
-    try:
-        import jax
+    import jax
 
-        # Accelerator backends only: XLA:CPU persists AOT machine code
-        # whose CPU-feature fingerprint can mismatch the executing host
-        # (observed: cache entries warning about possible SIGILL), and CPU
-        # compiles are cheap anyway.
-        if jax.default_backend() == "cpu":
-            return
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - very old jax
-        logger.debug("Persistent compilation cache unavailable.",
-                     exc_info=True)
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return jax.config.jax_compilation_cache_dir
+    if (jax.config.jax_platforms or "").strip() == "cpu":
+        return None
+    COMPILE_CACHE_DIR.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(COMPILE_CACHE_DIR))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return str(COMPILE_CACHE_DIR)
 
 
 def download_file(url: str, path) -> None:
@@ -84,7 +81,7 @@ def download_file(url: str, path) -> None:
     import urllib.request
 
     req = urllib.request.Request(url,
-                                 headers={"User-Agent": "mdeepfri-tpu"})
+                                 headers={"User-Agent": "mdeepfri"})
     try:
         with urllib.request.urlopen(req) as resp, open(path, "wb") as f:
             shutil.copyfileobj(resp, f)

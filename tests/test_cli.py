@@ -2,10 +2,10 @@
 plus a real make-cmaps run."""
 
 import numpy as np
-from click.testing import CliRunner
+import pytest
 
 from metagenomic_deepfri_tpu import __version__
-from metagenomic_deepfri_tpu.cli import main
+from metagenomic_deepfri_tpu.cli import VERBS, main
 
 PDB = """ATOM      2  CA  MET A   1      11.639   6.071  -5.147  1.00  0.00           C
 ATOM      3  CA  LYS A   2      12.685   9.140  -4.392  1.00  0.00           C
@@ -14,40 +14,56 @@ END
 """
 
 
-def test_version():
-    result = CliRunner().invoke(main, ["--version"])
-    assert result.exit_code == 0
-    assert __version__ in result.output
+def _exit_code(argv) -> int:
+    """Run ``main(argv)``; the exit code (argparse exits via SystemExit)."""
+    try:
+        return main(argv) or 0
+    except SystemExit as e:
+        return e.code if isinstance(e.code, int) else 1
 
 
-def test_help_lists_commands():
-    result = CliRunner().invoke(main, ["--help"])
-    assert result.exit_code == 0
-    for cmd in ("get-models", "generate-config", "search-databases",
-                "predict-function", "make-cmaps", "benchmark"):
-        assert cmd in result.output
+def test_version(capsys):
+    assert _exit_code(["--version"]) == 0
+    assert __version__ in capsys.readouterr().out
 
 
-def test_subcommand_help():
+def test_help_lists_commands(capsys):
+    assert _exit_code(["--help"]) == 0
+    out = capsys.readouterr().out
+    for cmd in VERBS:
+        assert cmd in out
+
+
+@pytest.mark.parametrize("verb", VERBS)
+def test_verb_help(verb, capsys):
+    assert _exit_code([verb, "--help"]) == 0
+    assert capsys.readouterr().out.startswith("usage:")
+
+
+def test_subcommand_help(capsys):
     for cmd in ("predict-function", "search-databases"):
-        result = CliRunner().invoke(main, [cmd, "--help"])
-        assert result.exit_code == 0
-        assert "--mmseqs-min-coverage" in result.output
+        assert _exit_code([cmd, "--help"]) == 0
+        assert "--mmseqs-min-coverage" in capsys.readouterr().out
+
+
+def test_usage_error_exits_nonzero(capsys):
+    assert _exit_code(["predict-function"]) == 2
+    err = capsys.readouterr().err
+    assert "usage:" in err and "required" in err
 
 
 def test_make_cmaps(tmp_path):
     (tmp_path / "in").mkdir()
     (tmp_path / "in" / "test.pdb").write_text(PDB)
-    result = CliRunner().invoke(main, [
+    assert _exit_code([
         "make-cmaps", "-i", str(tmp_path / "in"),
-        "-o", str(tmp_path / "out"), "-t", "6.0"])
-    assert result.exit_code == 0, result.output
+        "-o", str(tmp_path / "out"), "-t", "6.0"]) == 0
     cmap = np.load(tmp_path / "out" / "test_cmap.npy")
     assert cmap.shape == (3, 3)
     assert cmap[0, 1] == 1  # consecutive CAs ~3.8 Å apart
 
 
-def test_verify_weights(tmp_path):
+def test_verify_weights(tmp_path, capsys):
     """The parity harness passes on a freshly exported weights folder and
     fails when a weight file is corrupted."""
     import json
@@ -80,11 +96,9 @@ def test_verify_weights(tmp_path):
                 json.dump({"goterms": goterms, "gonames": goterms}, f)
     generate_config_json(w, "1.0")
 
-    runner = CliRunner()
-    result = runner.invoke(main, ["verify-weights", "-w", str(w),
-                                  "--n-proteins", "2"])
-    assert result.exit_code == 0, result.output
-    assert "All 8 models within" in result.output
+    assert _exit_code(["verify-weights", "-w", str(w),
+                       "--n-proteins", "2"]) == 0
+    assert "All 8 models within" in capsys.readouterr().out
 
     # a mis-importing registry (the failure class this harness exists to
     # catch: JAX import diverging from the graph) must be flagged
@@ -103,9 +117,8 @@ def test_verify_weights(tmp_path):
 
         monkeypatch = MonkeyPatch()
         monkeypatch.setattr(registry_mod, "import_gcn_params", broken_import)
-        result = runner.invoke(main, ["verify-weights", "-w", str(w),
-                                      "--n-proteins", "2"])
-        assert result.exit_code != 0
+        assert _exit_code(["verify-weights", "-w", str(w),
+                           "--n-proteins", "2"]) != 0
     finally:
         if monkeypatch:
             monkeypatch.undo()

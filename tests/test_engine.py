@@ -44,8 +44,8 @@ class TestBuckets:
         assert plan == {128: [0, 2], 512: [1], 1024: [3]}
 
     def test_batch_size_constant_footprint(self):
-        # measured rule: B·L² ≤ 512M elements (2 GB/adjacency buffer on a
-        # 16 GB chip), batch capped at 2048 (see buckets.py rationale)
+        # the batch rule: B·L² ≤ 512M elements (2 GB per f32 adjacency
+        # buffer), batch capped at 2048 (see buckets.py)
         for bucket in (128, 256, 512, 1024, 2048, 4096):
             b = gcn_batch_size(bucket)
             assert b * bucket ** 2 <= 512 * 1024 * 1024
@@ -244,11 +244,6 @@ class TestSharedTrunkMultiMode:
         handles["mf"] = ModelHandle("gcn", "mf", bad_cfg,
                                     handles["mf"].params)
         assert BatchedPredictor(gcn_models=handles)._gcn_shared is None
-
-    def test_forced_pallas_opts_out(self):
-        engine = BatchedPredictor(gcn_models=self._shared_handles(),
-                                  spmm="pallas")
-        assert engine._gcn_shared is None
 
     def _control(self, handles, **kw):
         """An engine identical in every way but with sharing disabled."""
@@ -1015,14 +1010,8 @@ class TestParamPlacement:
         assert isinstance(k_bp, _jax.Array)
 
     def test_fingerprints_gated(self):
-        # single-mode engines never hash (nothing to detect) …
+        # single-mode engines never hash (nothing to detect)
         handle = ModelHandle("gcn", "mf", GCN_CFG,
                              init_gcn(jax.random.PRNGKey(0), GCN_CFG))
         BatchedPredictor(gcn_models={"mf": handle})
         assert handle.fingerprints is None
-        # … and pallas-forced engines skip detection entirely
-        handles = {m: ModelHandle("gcn", m, GCN_CFG,
-                                  init_gcn(jax.random.PRNGKey(i), GCN_CFG))
-                   for i, m in enumerate(("bp", "mf"))}
-        BatchedPredictor(gcn_models=handles, spmm="pallas")
-        assert all(h.fingerprints is None for h in handles.values())

@@ -528,3 +528,27 @@ def test_skip_matrix_topk_results_identical(tmp_path):
     assert results["topk"] == results["dense"]
     # sanity: the run actually produced annotations
     assert len(results["dense"].strip().split("\n")) > 3
+
+
+def test_progress_log_lines(caplog, monkeypatch):
+    """The inference progress report: periodic logger lines with the count,
+    the total when known and a rate, plus a final line on close."""
+    import logging
+    from types import SimpleNamespace
+
+    from metagenomic_deepfri_tpu import pipeline
+
+    clock = iter([0.0, 1.0, 3.0, 11.0, 12.0])
+    monkeypatch.setattr(pipeline, "time",
+                        SimpleNamespace(monotonic=lambda: next(clock)))
+    with caplog.at_level(logging.INFO, logger=pipeline.logger.name):
+        bar = pipeline.ProgressLog("Predicting (CNN)", total=30,
+                                   interval_s=10.0)   # t=0
+        bar.update(10)                                # t=1: quiet
+        bar.update(5)                                 # t=3: quiet
+        bar.update(10)                                # t=11: logs
+        bar.close()                                   # t=12: logs
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("Predicting (CNN)")]
+    assert lines == ["Predicting (CNN): 25/30 [2.3/s]",
+                     "Predicting (CNN): 25/30 [2.1/s]"]

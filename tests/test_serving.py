@@ -107,32 +107,6 @@ class TestAnnotate:
                 scores = [s for _, s, _ in rows]
                 assert scores == sorted(scores, reverse=True)
 
-    def test_keepalive_pings_device(self, server):
-        """The keepalive thread executes tiny device programs on a cadence
-        and records their latencies (the stall-attribution history)."""
-        import time
-
-        from metagenomic_deepfri_tpu.serving import AnnotationServer
-
-        srv, _ = server
-        assert srv._keepalive_thread.is_alive()
-        # direct ping works and returns a sane latency
-        ms = srv.device_ping_ms()
-        assert 0 < ms < 60_000
-        # a fast-cadence keepalive populates the history promptly
-        stop_evt_holder = AnnotationServer.__new__(AnnotationServer)
-        stop_evt_holder._keepalive_stop = threading.Event()
-        stop_evt_holder.ping_history_ms = []
-        stop_evt_holder._start_keepalive(0.05)
-        try:
-            deadline = time.time() + 5.0
-            while not stop_evt_holder.ping_history_ms \
-                    and time.time() < deadline:
-                time.sleep(0.05)
-            assert stop_evt_holder.ping_history_ms
-        finally:
-            stop_evt_holder._keepalive_stop.set()
-
     def test_go_propagation_in_response(self, server, tmp_path):
         """With a GO DAG loaded, responses carry propagated ancestors
         (true-path rule, same semantics as results_propagated.tsv)."""
